@@ -1,7 +1,7 @@
 // Native reference oracle for tiberate_tpu.
 //
-// Where the reference ships CUDA kernels plus torch-op glue, the TPU build's
-// compute path is XLA/Pallas; the native component here serves the role the
+// Where the reference ships CUDA kernels plus torch-op glue, this build's
+// compute path is XLA; the native component here serves the role the
 // reference *lacked* (SURVEY.md §4): an independent, fast host-side oracle
 // for full-size golden vectors — exact negacyclic polynomial products,
 // Montgomery residue verification, and bulk ChaCha20 streams — implemented

@@ -100,9 +100,7 @@ def test_logN14_mode30_e2e():
 
 
 def test_logN17_e2e():
-    """logN17 end to end — the preset the round-2 fast path capped out
-    at; the P1-blocked fused kernel (VERDICT r2 #6) now covers it on
-    TPU, and this e2e pins the math at that ring size on any backend."""
+    """logN17 end to end: pins the math at the largest preset ring."""
     eng = CkksEngine("logN17", seed=3, nonce=1)
     rng = np.random.default_rng(5)
     m1 = rng.uniform(-1, 1, eng.num_slots)

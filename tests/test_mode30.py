@@ -112,12 +112,12 @@ def test_engine30_rotation_add_scalar(eng30):
 
 
 def test_engine30_mxu_ab():
-    """30-bit MXU 4-step == 30-bit radix-2, bit-exact ciphertexts."""
+    """30-bit int8 4-step == 30-bit radix-2, bit-exact ciphertexts."""
     cfg = toy_config(logN=8, num_scales=3, num_special_primes=2,
                      scale_bits=21, buffer_bit_length=30)
     kw = dict(seed=9, nonce=4)
-    eng_a = CkksEngine(cfg, use_mxu_ntt=False, **kw)
-    eng_b = CkksEngine(cfg, use_mxu_ntt=True, **kw)
+    eng_a = CkksEngine(cfg, transform="radix2", **kw)
+    eng_b = CkksEngine(cfg, transform="int8_4step", **kw)
     m1 = np.linspace(-1, 1, eng_a.num_slots)
     m2 = np.sin(np.linspace(0, 2, eng_a.num_slots))
     outs = []

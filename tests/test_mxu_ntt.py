@@ -1,4 +1,4 @@
-"""MXU 4-step NTT: residue parity vs the radix-2 kernels (CPU-runnable).
+"""int8 4-step NTT: residue parity vs the radix-2 kernels (CPU-runnable).
 
 The 4-step transform must produce the SAME residues (mod q) as ops/ntt.py
 in the same output order for every variant; lazy [0, 2q) representatives
@@ -87,7 +87,7 @@ def test_inverse_variants(logN, qbits):
 
 
 def test_roundtrip_and_lazy_inputs():
-    """Roundtrip through the MXU pair and lazy [0, 2q) inputs."""
+    """Roundtrip through the 4-step pair and lazy [0, 2q) inputs."""
     logN = 8
     q, pack, psi, ipsi, Ninv, Rs, x, fwd, inv = _setup(logN, [40, 60])
     # lazy inputs: x + q (still < 2q)
@@ -128,17 +128,19 @@ def test_level_slicing():
 
 
 def test_engine_mxu_vs_radix2_bit_exact():
-    """Full engine A/B: the MXU engine produces bit-identical ciphertexts
-    and decrypts to the same values as the radix-2 engine (same seed)."""
+    """Full engine A/B: the int8 4-step engine produces bit-identical
+    ciphertexts and decrypts to the same values as the radix-2 engine
+    (same seed)."""
     from tiberate_tpu.config.toy import toy_config
     from tiberate_tpu.engine import CkksEngine
 
     cfg = toy_config(logN=8, num_scales=4, num_special_primes=2,
                      scale_bits=40)
     kw = dict(seed=11, nonce=7)
-    eng_a = CkksEngine(cfg, use_mxu_ntt=False, **kw)
-    eng_b = CkksEngine(cfg, use_mxu_ntt=True, **kw)
-    assert eng_b.use_mxu_ntt
+    eng_a = CkksEngine(cfg, transform="radix2", **kw)
+    eng_b = CkksEngine(cfg, transform="int8_4step", **kw)
+    assert eng_b.transform == "int8_4step"
+    assert eng_b.params.lp(0, False).mxu_fwd is not None
 
     m1 = np.linspace(-1, 1, eng_a.num_slots)
     m2 = np.cos(np.linspace(0, 3, eng_a.num_slots))

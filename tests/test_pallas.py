@@ -1,11 +1,5 @@
-"""Pallas kernel tests.
-
-The pair-arithmetic layer is validated everywhere (pure jnp-on-uint32);
-the fused NTT kernels need a real TPU (Mosaic) and are exercised when the
-ambient backend is one — locally these are covered by the TPU-side runs
-(see bench.py and /tmp scripts in CI notes); under the CPU test harness
-they skip.
-"""
+"""uint32-pair modular arithmetic (``ops/pallas_mont.py``): bit-exact
+against the int64 REDC of ``ops/mont.py``."""
 
 import numpy as np
 import pytest

@@ -1,19 +1,19 @@
-"""tiberate_tpu — a TPU-native CKKS fully-homomorphic-encryption framework.
+"""tiberate_tpu — a CKKS fully-homomorphic-encryption framework in JAX.
 
-A from-scratch JAX/XLA/Pallas implementation with the full capability surface
+A from-scratch JAX/XLA implementation with the full capability surface
 of the reference GPU library (visualDust/tiberate-fhe): CKKS keygen,
 encode/encrypt, homomorphic add/mult/rescale/relinearize, key switching,
 Galois rotations/conjugation, ChaCha20 CSPRNG with discrete-Gaussian and
 stochastic-rounding samplers, multi-shard RNS partitioning, and extensions
 (threshold-FHE MPC, ciphertext packing, HE-NN layers, benchmarks).
 
-Design notes (TPU-first, not a port):
+Design notes (a redesign, not a port):
 
 * polynomials live as single ``[C, N]`` int64 arrays (RNS channel-major),
   shardable over a ``jax.sharding.Mesh`` axis instead of per-device tensor
   lists,
 * modular arithmetic is branchless 31-bit-half Montgomery REDC in int64,
-  compiled by XLA onto 32-bit VPU ops (Pallas kernels specialize hot paths),
+  compiled by XLA (int32 in the 30-bit lane),
 * the NTT is expressed as reshape-only butterfly stages (no gathers),
 * randomness is counter-mode ChaCha20 with globally-indexed counters, so
   shards regenerate identical "repeating channel" streams with zero

@@ -107,9 +107,9 @@ class CkksConfig:
             "uniform ternary" if self.uniform_ternary_secret else "sparse ternary"
         )
 
-        # numpy dtype of device buffers: the TPU build always stores residues
-        # as unsigned 64-bit words (31-bit-halved Montgomery arithmetic); the
-        # 30-bit mode uses int32 storage like the reference.
+        # numpy dtype of device buffers: 62-bit mode stores residues as
+        # 64-bit words (31-bit-halved Montgomery arithmetic); the 30-bit
+        # mode uses int32 storage like the reference.
         self.numpy_dtype = {30: np.int32, 62: np.int64}[self.buffer_bit_length]
 
         try:

@@ -1,6 +1,6 @@
 """Device-resident CKKS parameter context (the NTTContext equivalent).
 
-TPU-native redesign of the reference ``tiberate/context/ntt_context.py``.
+A JAX redesign of the reference ``tiberate/context/ntt_context.py``.
 Where the reference builds per-GPU lists of parameter tensors and a
 ``prepack`` dictionary of argument tuples per (level, mult_type, part)
 (``ntt_context.py:572-680``), here every parameter is ONE contiguous array
@@ -44,11 +44,9 @@ def _col(vals, dtype=np.int64):
 class LevelPack:
     """Everything the kernels need for one (level, include_special) view.
 
-    ``pmxu_fwd``/``pmxu_inv`` (optional) carry the fused Pallas MXU NTT
-    tables (``ops/pallas_mxu.py``); ``mxu_fwd``/``mxu_inv`` the XLA
-    matmul-form 4-step tables (``ops/mxu_ntt.py``).  When present, the
-    engine's NTT helpers prefer the fused Pallas path, then the XLA
-    matmul form, then the int64 jnp butterflies.
+    ``mxu_fwd``/``mxu_inv`` (optional) carry the int8 4-step tables
+    (``ops/mxu_ntt.py``).  When present, the engine's NTT helpers use
+    them for unsigned transforms; otherwise the radix-2 butterflies.
     """
 
     pack: ModPack           # ql/qh/kl/kh/_2q, [C, 1]
@@ -59,15 +57,11 @@ class LevelPack:
     Rs_scale: jax.Array     # [C, 1] R^2 * scale mod q
     mxu_fwd: object = None  # mxu_ntt.MxuNttTables | None
     mxu_inv: object = None  # mxu_ntt.MxuNttTables | None
-    pmxu_fwd: object = None  # pallas_mxu.KTables | None
-    pmxu_inv: object = None  # pallas_mxu.KTables | None
-    pdq: jax.Array | None = None  # [C, (2|4)*(1+S)] Shoup P-div quads
 
     def tree_flatten(self):
         return (
             (self.pack, self.psi, self.ipsi, self.Ninv, self.Rs,
-             self.Rs_scale, self.mxu_fwd, self.mxu_inv,
-             self.pmxu_fwd, self.pmxu_inv, self.pdq),
+             self.Rs_scale, self.mxu_fwd, self.mxu_inv),
             None,
         )
 
@@ -89,9 +83,6 @@ class LevelPack:
             Rs_scale=self.Rs_scale[sl],
             mxu_fwd=None if self.mxu_fwd is None else self.mxu_fwd[sl],
             mxu_inv=None if self.mxu_inv is None else self.mxu_inv[sl],
-            pmxu_fwd=None if self.pmxu_fwd is None else self.pmxu_fwd[sl],
-            pmxu_inv=None if self.pmxu_inv is None else self.pmxu_inv[sl],
-            pdq=None if self.pdq is None else self.pdq[sl],
         )
 
 
@@ -236,57 +227,6 @@ class CkksParams:
         P_prod = math.prod(P_primes)
         self.mont_PR = col([(P_prod * R) % q[i] for i in range(P)])
 
-        # Shoup-form P-division constants for the fused intt_pdiv
-        # epilogue (ops/pallas_mxu.py): the successive rescale
-        #   x_{i+1} = (x_i - p0_i) * P_i^-1
-        # is affine in (x, p0_0..p0_{S-1}), so the kernel evaluates
-        #   out = x * c_x - sum_i p0_i * c_i,
-        #   c_x = (prod_j P_j)^-1 * R^-1   (strips the Montgomery factor
-        #                                   the "mont" variant keeps),
-        #   c_i = prod_{j>=i} P_j^-1       (p0 rows arrive plain),
-        # with every multiply a Shoup constant multiplication — ~2.5x
-        # fewer vector ops than the REDC enter/divide/exit chain it
-        # replaces.  Level-independent (like psi/Rs): LevelPack row
-        # slices select the live channels.  Layout per channel: the
-        # (1+S) constants as (w, w') u32 pairs on the single lane
-        # (w' = floor(w * 2^31 / q), Harvey form) or (w0, w1, s0, s1)
-        # 31-bit splits on the pair lane (s = floor(w * 2^62 / q)).
-        single_lane = cfg.buffer_bit_length <= 31
-        M31 = (1 << 31) - 1
-        pdq_rows = []
-        width = (2 if single_lane else 4) * (1 + S)
-        for ci, qi in enumerate(q):
-            if ci >= P:   # special rows are never P-divided
-                pdq_rows.append([0] * width)
-                continue
-            consts = []
-            cx = pow(R, -1, qi)
-            for Pj in P_primes:
-                cx = cx * pow(Pj, -1, qi) % qi
-            consts.append(cx)
-            for i in range(S):
-                v = 1
-                for Pj in P_primes[i:]:
-                    v = v * pow(Pj, -1, qi) % qi
-                consts.append(v)
-            row = []
-            for w in consts:
-                if single_lane:
-                    row += [w, (w << 31) // qi]
-                else:
-                    s = (w << 62) // qi
-                    row += [w & M31, w >> 31, s & M31, s >> 31]
-            pdq_rows.append(row)
-        self.pdq = jnp.array(np.array(pdq_rows, dtype=np.uint32))
-        # rebuild the full pack now that pdq exists (built above before
-        # the P-division constants)
-        self._full = LevelPack(
-            pack=self.pack, psi=self.psi, ipsi=self.ipsi,
-            Ninv=self.Ninv, Rs=self.Rs, Rs_scale=self.Rs_scale,
-            pdq=self.pdq,
-        )
-        self._lp_cache = {}
-
         # --- decode constants (reference ckks_engine.py:239-270) -------
         scale = cfg.scale
         self.alpha = [
@@ -325,7 +265,7 @@ class CkksParams:
     def enable_mxu_ntt(self):
         """Attach the matmul-form 4-step NTT tables (``ops/mxu_ntt``).
 
-        Unsigned transforms then run as int8 MXU limb contractions; the
+        Unsigned transforms then run as int8 limb contractions; the
         signed key-material path keeps the radix-2 butterflies.
         """
         if getattr(self, "_mxu_enabled", False):
@@ -342,40 +282,10 @@ class CkksParams:
         self._full = LevelPack(
             pack=self.pack, psi=self.psi, ipsi=self.ipsi,
             Ninv=self.Ninv, Rs=self.Rs, Rs_scale=self.Rs_scale,
-            mxu_fwd=fwd, mxu_inv=inv, pdq=self.pdq,
+            mxu_fwd=fwd, mxu_inv=inv,
         )
         self._lp_cache = {}
         self._mxu_enabled = True
-
-    def enable_pallas_mxu(self):
-        """Attach the fused Pallas MXU NTT tables (``ops/pallas_mxu``).
-
-        One pallas_call per transform: both twiddle matmuls run as int8
-        MXU dots with the diagonal accumulator in VMEM and the Shoup
-        recombination interleaved on the VPU (~2x the XLA matmul-form
-        path on a v5e).  TPU-only (the kernel needs N1, N2 >= 128, i.e.
-        logN >= 14); unsigned transforms only, like ``enable_mxu_ntt``.
-        """
-        if getattr(self, "_pmxu_enabled", False):
-            return
-        from tiberate_tpu.ops import pallas_mxu
-
-        fwd = pallas_mxu.build_tables(
-            self.q, self.logN, mont_R_bits=self.buffer_bit_length
-        )
-        inv = pallas_mxu.build_tables(
-            self.q, self.logN, mont_R_bits=self.buffer_bit_length,
-            inverse=True,
-        )
-        self._full = LevelPack(
-            pack=self.pack, psi=self.psi, ipsi=self.ipsi,
-            Ninv=self.Ninv, Rs=self.Rs, Rs_scale=self.Rs_scale,
-            mxu_fwd=self._full.mxu_fwd,
-            mxu_inv=self._full.mxu_inv, pmxu_fwd=fwd, pmxu_inv=inv,
-            pdq=self.pdq,
-        )
-        self._lp_cache = {}
-        self._pmxu_enabled = True
 
     def base_lp(self) -> LevelPack:
         """The base-prime-only view (last ordinary channel)."""

@@ -10,7 +10,7 @@ Behavioral equivalent of the reference ``tiberate/context/rns_partition.py``:
   rescaling (which drops primes from the global front) unloads shards evenly,
 * per-level views describe which prime indices remain where.
 
-On TPU the "devices" axis maps onto a mesh axis sharding the RNS-channel
+Here the "devices" axis maps onto a mesh axis sharding the RNS-channel
 dimension of a single ``[C, N]`` array; the single-shard (num_devices=1) plan
 is the engine default, in which case at level ``lvl`` the live prime indices
 are simply ``[lvl .. P+S-1]``.

@@ -133,7 +133,7 @@ def _draw(stdscr, state: SelectorState) -> None:
     bold = curses.A_BOLD
     rev = curses.A_REVERSE
 
-    stdscr.addnstr(0, 0, " Tiberate-TPU Benchmarks ".center(w, "="), w - 1,
+    stdscr.addnstr(0, 0, " Tiberate Benchmarks ".center(w, "="), w - 1,
                    bold)
     foc = ("[benchmark pane]" if state.focus == 0 else "[option pane]")
     stdscr.addnstr(1, 0, f" arrows: move/switch pane   Enter/^R: run   "

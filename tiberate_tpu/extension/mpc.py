@@ -15,7 +15,7 @@ that no longer exist; the protocols here are the repaired versions):
 * evaluation-key generation by the 3-round share-sum -> mult-by-sk ->
   share-sum protocol.
 
-On TPU the "repeating channel" ChaCha20 counters make the shared ``a``
+The "repeating channel" ChaCha20 counters make the shared ``a``
 available on every shard with zero communication (SURVEY.md §2.2).
 """
 

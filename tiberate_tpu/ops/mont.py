@@ -1,6 +1,6 @@
 """Branchless Montgomery modular arithmetic on ``int64`` RNS tensors.
 
-TPU-native reimplementation of the reference CUDA kernels
+A JAX reimplementation of the reference CUDA kernels
 (``csrc/cuda/mont_cuda_kernel.cuh``, ``csrc/cuda/mont_cuda.cu``): identical
 31-bit-half REDC with ``R = 2^62`` and the lazy ``[0, 2q)`` representative
 convention (no conditional subtraction, valid because ``4q < R``).

@@ -1,12 +1,13 @@
-"""Matmul-form (4-step) negacyclic NTT on the MXU.
+"""Matmul-form (4-step) negacyclic NTT as int8 limb contractions.
 
-TPU-native replacement for the per-stage butterfly NTT: where the reference
+An alternative to the per-stage butterfly NTT: where the reference
 launches one CUDA butterfly kernel per stage (``csrc/cuda/ntt_cuda.cu:89-100``)
-and ``ops/ntt.py`` runs the same dataflow as VPU reshape-arithmetic, this
-module reshapes N = N1 x N2 and evaluates the transform as two *modular
+and ``ops/ntt.py`` runs the same dataflow as elementwise reshape-arithmetic,
+this module reshapes N = N1 x N2 and evaluates the transform as two *modular
 matrix multiplications* by constant twiddle matrices with an elementwise
-twiddle fold between them — moving the O(N logN) butterfly arithmetic onto
-the MXU as int8 limb contractions and leaving the VPU only O(N) epilogues.
+twiddle fold between them — moving the O(N logN) butterfly arithmetic into
+int8 ``dot_general``s with int32 accumulation (the tensor-core idea of GPU
+NTTs such as TensorFHE) and leaving only O(N) elementwise epilogues.
 
 Math (verified bit-exact against ``ops/ntt.py``; n = N2*n1 + n2, output
 index j = r1*N2 + r2, br = bit-reversal):
@@ -20,7 +21,7 @@ index j = r1*N2 + r2, br = bit-reversal):
               (left-matmul, twiddle, right-matmul) code path run on the
               transposed matrix view with swapped (N1, N2) roles.
 
-Exact modular matmuls on int8 MXU lanes:
+Exact modular matmuls on int8 operands:
 
 * operands split into L 7-bit limbs; L chosen *per RNS channel group* from
   the prime width (6 limbs for ~40-bit scale primes, 9 for ~60-bit

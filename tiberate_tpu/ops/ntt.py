@@ -1,16 +1,16 @@
 """Negacyclic NTT / iNTT on ``[..., C, N]`` uint64 RNS tensors.
 
-TPU-native redesign of the reference CUDA NTT (``csrc/cuda/ntt_cuda.cu``).
+A JAX redesign of the reference CUDA NTT (``csrc/cuda/ntt_cuda.cu``).
 The reference launches one gather-based butterfly kernel per stage using
 precomputed "painted" even/odd index tables (``ntt_context.py:81-134``).
-Gathers are TPU-hostile; here each stage is expressed as a pure *reshape*:
+Here each stage is expressed as a pure *reshape*, with no index tables:
 
     stage ``logm`` (m = 2^logm groups, t = N / 2m):
         view x as [..., m, 2, t]; U = x[..., 0, :], O = x[..., 1, :]
         V = mont_mult(psi[m + i], O)     (CT butterfly, forward)
         x <- [U + V, U - V]  (lazy mod 2q)
 
-which XLA compiles to VPU-friendly strided arithmetic with zero index
+which XLA fuses into one elementwise kernel per stage with zero index
 traffic.  The twiddle bank ``psi`` is the bit-reversed ψ power series in
 Montgomery form — the same table the reference precomputes
 (``ntt_context.py:42-78``) — so transforms are bit-identical to the
@@ -34,17 +34,11 @@ from tiberate_tpu.ops.mont import ModPack
 
 @lru_cache(maxsize=1)
 def _use_pair() -> bool:
-    """Use explicit uint32-pair REDC for the NTT butterflies on backends
-    without native 64-bit integer vectors (TPU): ~1.4x over XLA's int64
-    emulation standalone and bit-exact on the nonnegative domain.  Inside
-    fully-fused pipelines the int64<->pair boundary conversions eat part of
-    the gain; override with TIBERATE_PAIR_NTT=0/1 to A/B.
-    CPU keeps the native int64 path (faster there, signed-complete)."""
+    """Opt-in (TIBERATE_PAIR_NTT=1) explicit uint32-pair REDC for the
+    NTT butterflies, bit-exact with the int64 path on the nonnegative
+    domain.  Off by default; not measured on a GPU (ROADMAP D2)."""
     import os
 
-    # Controlled A/B on v5e (batched logN15 cc_mult): int64 23.2 ms/ct vs
-    # pair 30.8 ms/ct — XLA fuses its own emulation better than the split
-    # lo/hi chains, so the pair path is opt-in for experiments.
     return os.environ.get("TIBERATE_PAIR_NTT") == "1"
 
 
@@ -88,7 +82,7 @@ def _pair_consts(pack: ModPack):
 
 
 def _ntt_pair(x, psi, pack: ModPack, Rs=None):
-    """uint32-pair forward butterflies (nonnegative domain, TPU fast path).
+    """uint32-pair forward butterflies (nonnegative domain only).
 
     Bit-identical to the int64 path for inputs in [0, 2^62)."""
     from tiberate_tpu.ops import pallas_mont as pm

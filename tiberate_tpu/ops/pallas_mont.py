@@ -1,17 +1,18 @@
-"""uint32-pair (64-bit limb) modular arithmetic for Pallas TPU kernels.
+"""uint32-pair (64-bit limb) modular arithmetic in plain ``jnp``.
 
-Mosaic has no 64-bit integer vectors, so 62-bit residues travel as
-``(lo, hi)`` uint32 pairs and every multiply is built from 16-bit splits
-whose partial products fit 32 bits.  The algorithms are the same
+62-bit residues travel as ``(lo, hi)`` uint32 pairs and every multiply is
+built from 16-bit splits whose partial products fit 32 bits, for
+backends whose vector units lack 64-bit integer multiplies.  Used by the
+opt-in pair NTT (``ops/ntt.py``, ``TIBERATE_PAIR_NTT=1``).  The algorithms are the same
 31-bit-half Montgomery REDC as ``ops/mont.py`` (and the reference CUDA,
 ``csrc/cuda/mont_cuda_kernel.cuh:11-60``), restricted to the *unsigned*
 [0, 2^62) domain — the NTT/elementwise hot paths only see nonnegative
 representatives; signed paths (rescale deltas, basis-extension digits)
 stay on the int64 jnp implementation.
 
-All helpers are plain jnp-on-uint32 functions: they run identically inside
-Pallas kernels, under XLA on any backend, and in numpy-backed tests —
-bit-exactness is validated against ``mont.mont_mult`` directly.
+All helpers are plain jnp-on-uint32 functions: they run identically under
+XLA on any backend and in numpy-backed tests — bit-exactness is validated
+against ``mont.mont_mult`` directly.
 """
 
 import jax.numpy as jnp

@@ -1,22 +1,10 @@
-"""shard_map API compat: jax>=0.8 moved ``jax.experimental.shard_map``
-to ``jax.shard_map`` and renamed ``check_rep`` to ``check_vma``."""
+"""``jax.shard_map`` with value-replication checking off by default."""
 
-import inspect
-
-try:
-    from jax import shard_map as _shard_map
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map as _shard_map
-
-_CHECK_KW = (
-    "check_vma"
-    if "check_vma" in inspect.signature(_shard_map).parameters
-    else "check_rep"
-)
+import jax
 
 
 def shard_map(f, mesh, in_specs, out_specs, check=False):
-    """``shard_map`` with value-replication checking off by default (the
-    switchers' gather-then-slice bodies are not VMA-typable)."""
-    return _shard_map(f, mesh=mesh, in_specs=in_specs,
-                      out_specs=out_specs, **{_CHECK_KW: check})
+    """``jax.shard_map`` with ``check_vma`` off by default (the switchers'
+    gather-then-slice bodies are not VMA-typable)."""
+    return jax.shard_map(f, mesh=mesh, in_specs=in_specs,
+                         out_specs=out_specs, check_vma=check)

@@ -5,7 +5,7 @@ polynomial's butterflies always lived on one GPU
 (``ntt_cuda.cu:89-100``).  Here the N axis is sharded contiguously over a
 mesh axis; the first ``log2(D)`` Cooley-Tukey stages pair elements across
 shards and exchange partner blocks over the interconnect
-(``lax.ppermute`` — ICI when the axis is intra-slice), after which every
+(``lax.ppermute``, which XLA lowers to NCCL), after which every
 remaining stage is shard-local:
 
     stage s < log2(D):   partner = shard ^ (D >> (s+1))
@@ -18,8 +18,8 @@ the cross-shard stages in reverse).  Outputs are bit-identical to the
 unsharded ``ops.ntt`` path — same math, same ordering.
 
 This is the logN>=17 multi-host building block: with mesh =
-(hosts x chips), the cross-shard stages ride DCN for the outermost
-pairings and ICI inside a slice.
+(hosts x cards), the outermost pairings cross hosts and the rest stay on
+the NVLink inside a host.
 """
 
 import jax

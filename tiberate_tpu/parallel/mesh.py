@@ -1,6 +1,6 @@
 """Device-mesh plumbing for sharded CKKS.
 
-The TPU-native replacement for the reference's two distribution mechanisms
+The JAX replacement for the reference's two distribution mechanisms
 (SURVEY.md §2.2):
 
 * in-process multi-GPU RNS decomposition (per-device tensor lists with

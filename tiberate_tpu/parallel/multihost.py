@@ -1,9 +1,9 @@
 """Multi-host runtime plumbing.
 
-TPU-native replacement for the reference's torch-RPC scheduler/worker
+The JAX replacement for the reference's torch-RPC scheduler/worker
 topology (``tiberate/extension/multigpu.py``: rank 0 scheduler holding RRefs
 to per-GPU WorkerContexts, keys shipped through CPU, closures pickled over
-TensorPipe).  On TPU pods the idiom is the opposite: ONE program runs on
+TensorPipe).  In JAX the idiom is the opposite: ONE program runs on
 every host (``jax.distributed``), the mesh spans all chips, and "sending
 work to a worker" is just sharding.  What remains of the reference's API is
 initialization, key broadcast, and host-local batch scattering — provided
@@ -18,8 +18,9 @@ import jax
 def init_multihost(coordinator=None, num_processes=None, process_id=None):
     """Initialize the multi-host runtime (idempotent; no-op single-host).
 
-    With no arguments, uses the cluster-provided environment (TPU pods
-    auto-detect).  Returns (process_index, process_count).
+    Single-process when ``num_processes`` is None or 1; otherwise give
+    the coordinator address, process count and this process's id.
+    Returns (process_index, process_count).
     """
     if num_processes is not None and num_processes > 1:
         jax.distributed.initialize(
@@ -33,8 +34,8 @@ def init_multihost(coordinator=None, num_processes=None, process_id=None):
 def global_mesh(rns=None, coef=None, batch=1):
     """A mesh over ALL devices of the (possibly multi-host) runtime.
 
-    Axis order (batch, rns, coef); DCN-reaching axes should be the
-    outermost (batch) so collectives over rns/coef ride ICI.
+    Axis order (batch, rns, coef); axes that cross hosts should be the
+    outermost (batch) so collectives over rns/coef stay inside a host.
     """
     devs = jax.devices()
     n = len(devs)

@@ -20,7 +20,8 @@ states through pinned host buffers to every GPU
   compute is O((C_ord/D + S) * N).
 
 Total collectives per switch: one all_gather of [C_ord/D, N] blocks.
-Collectives ride the ICI when the 'rns' axis is an intra-slice mesh axis.
+XLA lowers the collectives to NCCL; the mesh follows the algorithm, since
+the cards of one host reach each other all to all over NVLink.
 Requires the ordinary channel count to divide the axis size.
 """
 
@@ -47,122 +48,6 @@ from tiberate_tpu.ops import mont, ntt
 from tiberate_tpu.ops.mont import ModPack
 
 
-def _pallas_switch_tables(eng, level: int, D: int, ro: int, sp_lists):
-    """Fused-kernel (``ops/pallas_mxu``) tables for the sharded switchers.
-
-    SPMD row blocks must share ONE static group structure across shards,
-    but only the LAST shard's ordinary block holds the wide base prime.
-    Split each shard's rows into a ``head`` block (the first ro-1
-    ordinary rows — always scale primes, natural limb count) and a
-    ``tail`` block (last ordinary row + this shard's special rows),
-    with the tail force_L'd to the widest modulus: limb planes past a
-    value's width are zero, so residues are unchanged and only ONE
-    scale-prime row per non-last shard pays the wider fold.
-
-    ``sp_lists[d]``: the special-prime values shard ``d`` carries
-    (replicated mode: all S on every shard; scatter mode: the
-    round-robined subset).  Returns (templates, leaves): templates are
-    single-group KTables kept ONLY for their static fields; leaves are
-    the table arrays, stacked shard-major so a P(axis) spec shards each
-    into per-shard blocks.
-    """
-    from tiberate_tpu.ops import pallas_mxu
-    from tiberate_tpu.ops.mxu_ntt import limbs_for_bits
-
-    prm = eng.params
-    Pn = prm.P
-    q_ord = [int(x) for x in prm.q[level:Pn]]
-    logN = eng.ckksCfg.logN
-    head = ro - 1
-    q6, q9 = [], []
-    for d in range(D):
-        rows = q_ord[d * ro:(d + 1) * ro]
-        q6 += rows[:head]
-        q9 += rows[head:] + list(sp_lists[d])
-
-    def nat_L(v):
-        return limbs_for_bits(v.bit_length() + 1)
-
-    kw = dict(mont_R_bits=prm.buffer_bit_length)
-    tpl = {}
-    if q6:
-        L6 = max(map(nat_L, q6))
-        tpl["f6"] = pallas_mxu.build_tables(q6, logN, force_L=L6, **kw)
-        tpl["i6"] = pallas_mxu.build_tables(q6, logN, force_L=L6,
-                                            inverse=True, **kw)
-    L9 = max(map(nat_L, q9))
-    tpl["f9"] = pallas_mxu.build_tables(q9, logN, force_L=L9, **kw)
-    tpl["i9"] = pallas_mxu.build_tables(q9, logN, force_L=L9,
-                                        inverse=True, **kw)
-    assert all(len(t.groups) == 1 for t in tpl.values())
-    leaves = {
-        k: dict(W1=t.groups[0].W1, W2=t.groups[0].W2, TA=t.groups[0].TA,
-                consts=t.groups[0].consts,
-                sc=t.groups[0].scalars["plain" if k[0] == "f"
-                                       else "exit"])
-        for k, t in tpl.items()
-    }
-    return tpl, leaves
-
-
-def _mk_ktables(tpl, lv, variant: str, rows: int):
-    """Rebuild a per-shard single-group KTables from a template's STATIC
-    fields and this shard's leaf arrays (never touch the template's own
-    arrays — they would bake into the HLO as literals)."""
-    from tiberate_tpu.ops.pallas_mxu import KGroup, KTables
-
-    g = tpl.groups[0]
-    grp = KGroup(L=g.L, c0=0, c1=rows, W1=lv["W1"], W2=lv["W2"],
-                 TA=lv["TA"], consts=lv["consts"],
-                 scalars={variant: lv["sc"]}, sa=g.sa, sb=g.sb)
-    return KTables((grp,), tpl.P1, tpl.P2, tpl.swap, tpl.lane)
-
-
-def _pallas_keymul_part(tpl, pml, ext, kcat0, kcat1, head, acc):
-    """One keyswitch part on the fused kernel: forward NTT + BOTH evk
-    REDC multiplies + the running part-sum, all inside the pallas call
-    (two static row blocks, see :func:`_pallas_switch_tables`).  ``acc``:
-    [head_block, tail_block] running accumulators (tuples of (lo, hi)
-    u32 pairs per key) or None — matches the reference's d0/d1 part
-    accumulation (``ckks_engine.py:1048-1058``) with zero HBM merges."""
-    from tiberate_tpu.ops import pallas_mxu
-
-    rb = ext.shape[0]
-    out = []
-    for bi, (key, sl) in enumerate((("6", slice(0, head)),
-                                    ("9", slice(head, rb)))):
-        if "f" + key not in tpl:
-            out.append(None)
-            continue
-        rows = sl.stop - sl.start
-        tf = _mk_ktables(tpl["f" + key], pml["f" + key], "plain", rows)
-        keys = (pallas_mxu.key_pairs(kcat0[sl], tf),
-                pallas_mxu.key_pairs(kcat1[sl], tf))
-        out.append(pallas_mxu.ntt_keymul(
-            ext[sl], tf, keys, accum=acc[bi] if acc else None,
-            pair_out=True))
-    return out
-
-
-def _pallas_intt_exit_reduce(tpl, pml, acc, head, rb, pack, dtype):
-    """Inverse transform + Montgomery exit + reduce_2q of the two
-    accumulated row blocks — residue-identical to
-    ``ntt.intt_exit_reduce`` (canonical [0, q) output)."""
-    from tiberate_tpu.ops import pallas_mxu
-
-    outs = [[], []]
-    for bi, (key, rows) in enumerate((("6", head), ("9", rb - head))):
-        if acc[bi] is None:
-            continue
-        ti = _mk_ktables(tpl["i" + key], pml["i" + key], "exit", rows)
-        for which in (0, 1):
-            outs[which].append(pallas_mxu._apply(
-                acc[bi][which], ti, "exit", out_dtype=dtype))
-    d0 = jnp.concatenate(outs[0]) if len(outs[0]) > 1 else outs[0][0]
-    d1 = jnp.concatenate(outs[1]) if len(outs[1]) > 1 else outs[1][0]
-    return mont.reduce_2q(d0, pack), mont.reduce_2q(d1, pack)
-
-
 def _split_pack(pack: ModPack, cut):
     lo = ModPack(ql=pack.ql[:cut], qh=pack.qh[:cut], kl=pack.kl[:cut],
                  kh=pack.kh[:cut], _2q=pack._2q[:cut])
@@ -183,7 +68,6 @@ def _cat_pack(a: ModPack, b: ModPack):
 
 def make_rns_sharded_switcher(eng, level: int, mesh, axis: str = "rns",
                               scatter_special: bool = False,
-                              use_pallas: bool | None = None,
                               coef_axis: str | None = None):
     """Builds ``switcher(a, ksk_parts) -> (c0, c1)`` with 'rns'-sharded
     channels; bit-identical to ``eng.create_switcher`` output.
@@ -193,30 +77,21 @@ def make_rns_sharded_switcher(eng, level: int, mesh, axis: str = "rns",
     block-sharded over ``axis``.
 
     ``scatter_special``: instead of every shard replicating all S special
-    rows (per-shard work (C/D + S) rows/part — the f(D) wall in
-    benchmarks/SCALING.md), the special rows are round-robined over the
+    rows (per-shard work (C/D + S) rows/part, which stops scaling once
+    C/D nears S), the special rows are round-robined over the
     shards too (padded with duplicates when S < D) and their values
     exchanged by ONE tiny all_gather ([ceil(S/D), N] per shard) before
     the P-division epilogue.  Per-shard work drops to
     (C + S)/D rows/part — near-perfect scaling — at the price of a
     second (small) collective.
 
-    ``use_pallas`` (default: the engine's own kernel gate, or
-    ``pallas_mxu.INTERPRET`` for CPU tests): run each shard's transforms
-    through the fused MXU kernels — forward NTT + both evk multiplies +
-    part-sum in one pallas call per part and row block — so multi-chip
-    mode shares the single-chip fast math path, like the reference's
-    per-device kernel loop (``csrc/mont.cpp:17-24``).  The radix-2 jnp
-    path remains the CPU/virtual-mesh fallback.
+    Each shard runs the radix-2 transforms (``ops/ntt.py``).
 
     ``coef_axis``: also shard the polynomial coefficient axis (manual
     over BOTH mesh axes): the radix-2 butterflies' cross-shard pairings
     run as explicit ``lax.ppermute`` exchanges (``parallel/coef_sharded``)
     instead of GSPMD halo all-reduces, and the rns state all_gather moves
-    [C/D_r, N/D_c] blocks.  Forces the radix-2 transform path (the fused
-    MXU kernel operates on whole-N rows; its coef-sharded form is the
-    4-step transpose exchange, future work) and the replicated-special
-    epilogue.
+    [C/D_r, N/D_c] blocks.  Forces the replicated-special epilogue.
     """
     lp_ord = eng._lp(level, False)
     lp_sp = eng._lp(level, True)
@@ -267,31 +142,17 @@ def make_rns_sharded_switcher(eng, level: int, mesh, axis: str = "rns",
     if coef_axis is not None and mesh.shape[coef_axis] <= 1:
         coef_axis = None
     if coef_axis is not None:
-        use_pallas = False          # whole-N-row kernels: see docstring
         scatter_special = False
-    if use_pallas is None:
-        from tiberate_tpu.ops import pallas_mxu
-
-        use_pallas = bool(getattr(eng, "use_pallas_mxu", False)
-                          or pallas_mxu.INTERPRET)
-    head = ro - 1
     Dc = mesh.shape[coef_axis] if coef_axis else 1
     logN = eng.ckksCfg.logN
 
     if scatter_special:
         return _make_scatter_special(
             mesh, axis, parts, alloc, level, Pn, S, D, ro,
-            ot, st, pack_s, plp_packs, eng if use_pallas else None,
+            ot, st, pack_s, plp_packs,
         )
 
-    q_sp_vals = [int(x) for x in eng.params.q[Pn:]]
-    if use_pallas:
-        ptpl, pml0 = _pallas_switch_tables(
-            eng, level, D, ro, [q_sp_vals] * D)
-    else:
-        ptpl, pml0 = None, None
-
-    def shard_fn(a_blk, ot, st, ksk_o, ksk_s, pml):
+    def shard_fn(a_blk, ot, st, ksk_o, ksk_s):
         # 1. state broadcast: gather the ordinary channels once.
         a = lax.all_gather(a_blk, axis, tiled=True)  # [C_ord, N]
         N = a.shape[-1]
@@ -308,7 +169,6 @@ def make_rns_sharded_switcher(eng, level: int, mesh, axis: str = "rns",
 
         d0 = None
         d1 = None
-        acc = None   # fused-kernel path: per-block accumulator pairs
         for k, part in enumerate(parts):
             # 2. mixed-radix digits, replicated (alpha rows only)
             class _Plp:  # _pre_extend only touches .pack
@@ -328,12 +188,6 @@ def make_rns_sharded_switcher(eng, level: int, mesh, axis: str = "rns",
                     ext = mont.mont_add(ext, Y, pack)
             kcat0 = jnp.concatenate([ksk_o[2 * k], ksk_s[2 * k]])
             kcat1 = jnp.concatenate([ksk_o[2 * k + 1], ksk_s[2 * k + 1]])
-            if ptpl is not None:
-                # 4. fused MXU kernel: NTT + both evk multiplies +
-                # part-sum in one pallas call per row block
-                acc = _pallas_keymul_part(ptpl, pml, ext, kcat0, kcat1,
-                                          head, acc)
-                continue
             # 4. local NTT; with a coef axis the cross-shard butterfly
             # stages exchange partner blocks by explicit ppermute
             if coef_axis is not None:
@@ -353,10 +207,7 @@ def make_rns_sharded_switcher(eng, level: int, mesh, axis: str = "rns",
         # 5. fully-local epilogue: iNTT own rows, then successive
         # P-division — every shard holds current special rows, so each
         # iteration is pure local row arithmetic.
-        if ptpl is not None:
-            d0, d1 = _pallas_intt_exit_reduce(
-                ptpl, pml, acc, head, rb, pack, a_blk.dtype)
-        elif coef_axis is not None:
+        if coef_axis is not None:
             from tiberate_tpu.parallel.coef_sharded import intt_block
 
             d0 = mont.reduce_2q(mont.mont_reduce(
@@ -399,8 +250,7 @@ def make_rns_sharded_switcher(eng, level: int, mesh, axis: str = "rns",
     ca = coef_axis  # None -> coefficient dim replicated (single name)
     sharded = shard_map(
         shard_fn, mesh=mesh,
-        in_specs=(P(axis, ca), P(axis), P(), P(axis, ca), P(None, ca),
-                  P(axis)),
+        in_specs=(P(axis, ca), P(axis), P(), P(axis, ca), P(None, ca)),
         out_specs=(P(axis, ca), P(axis, ca)),
     )
 
@@ -430,44 +280,32 @@ def make_rns_sharded_switcher(eng, level: int, mesh, axis: str = "rns",
         :func:`prepare_ksk` pre-split/pre-sharded form (preferred inside
         larger jits).
 
-        ``tables`` (default: the closure's (ot, st, pml)) lets an outer
+        ``tables`` (default: the closure's (ot, st)) lets an outer
         jit pass the twiddle/constant tables as RUNTIME arguments instead
         of baking them into the HLO as literals (``switcher.tables`` is
         the matching pytree — thread it through e.g.
         ``mult_step_params``).
         """
-        ot_, st_, pml_ = tables if tables is not None else (ot, st, pml0)
+        ot_, st_ = tables if tables is not None else (ot, st)
         if isinstance(ksk, RnsKsk):
             ksk_o, ksk_s = ksk.o, ksk.s
         else:
             ksk_o, ksk_s = _split_ksk(ksk)
-        return sharded(a, ot_, st_, ksk_o, ksk_s, pml_)
+        return sharded(a, ot_, st_, ksk_o, ksk_s)
 
-    switcher.tables = (ot, st, pml0)
+    switcher.tables = (ot, st)
     switcher.prepare_ksk = prepare_ksk
     return switcher
 
 
 def _make_scatter_special(mesh, axis, parts, alloc, level, Pn,
-                          S, D, ro, ot, st, pack_s, plp_packs,
-                          pallas_eng=None):
+                          S, D, ro, ot, st, pack_s, plp_packs):
     """The scatter_special switcher: special rows round-robined over the
     shards (padded with duplicates when S < D), one extra tiny
-    all_gather of the special accumulator rows before the epilogue.
-    ``pallas_eng``: when given, per-shard transforms run on the fused
-    MXU kernels (see ``make_rns_sharded_switcher``)."""
+    all_gather of the special accumulator rows before the epilogue."""
     rps = -(-S // D)                 # special rows per shard (padded)
     total = D * rps
     src = [i if i < S else i % S for i in range(total)]
-    head = ro - 1
-    if pallas_eng is not None:
-        q_sp_vals = [int(x) for x in pallas_eng.params.q[Pn:]]
-        ptpl, pml0 = _pallas_switch_tables(
-            pallas_eng, level, D, ro,
-            [[q_sp_vals[i] for i in src[d * rps:(d + 1) * rps]]
-             for d in range(D)])
-    else:
-        ptpl, pml0 = None, None
 
     def take(v):
         return v[jnp.array(src)]
@@ -486,7 +324,7 @@ def _make_scatter_special(mesh, axis, parts, alloc, level, Pn,
     )
     stsm = dict(pack=pack_s, PiRs=st["PiRs"])   # replicated, tiny
 
-    def shard_fn(a_blk, ot, stp, stsm, ksk_o, ksk_sp, pml):
+    def shard_fn(a_blk, ot, stp, stsm, ksk_o, ksk_sp):
         a = lax.all_gather(a_blk, axis, tiled=True)  # [C_ord, N]
         N = a.shape[-1]
         rb_s = ro + rps                  # own rows this shard transforms
@@ -499,7 +337,6 @@ def _make_scatter_special(mesh, axis, parts, alloc, level, Pn,
 
         d0 = None
         d1 = None
-        acc = None
         for k, part in enumerate(parts):
             class _Plp:  # _pre_extend only touches .pack
                 pack = plp_packs[k]
@@ -518,10 +355,6 @@ def _make_scatter_special(mesh, axis, parts, alloc, level, Pn,
                     ext = mont.mont_add(ext, Y, pack)
             kcat0 = jnp.concatenate([ksk_o[2 * k], ksk_sp[2 * k]])
             kcat1 = jnp.concatenate([ksk_o[2 * k + 1], ksk_sp[2 * k + 1]])
-            if ptpl is not None:
-                acc = _pallas_keymul_part(ptpl, pml, ext, kcat0, kcat1,
-                                          head, acc)
-                continue
             ext = ntt.ntt(ext, psi, pack)
             t0 = mont.mont_mult(ext, kcat0, pack)
             t1 = mont.mont_mult(ext, kcat1, pack)
@@ -531,12 +364,8 @@ def _make_scatter_special(mesh, axis, parts, alloc, level, Pn,
                 d0 = mont.mont_add(d0, t0, pack)
                 d1 = mont.mont_add(d1, t1, pack)
 
-        if ptpl is not None:
-            d0, d1 = _pallas_intt_exit_reduce(
-                ptpl, pml, acc, head, rb_s, pack, a_blk.dtype)
-        else:
-            d0 = ntt.intt_exit_reduce(d0, ipsi, Ninv, pack)
-            d1 = ntt.intt_exit_reduce(d1, ipsi, Ninv, pack)
+        d0 = ntt.intt_exit_reduce(d0, ipsi, Ninv, pack)
+        d1 = ntt.intt_exit_reduce(d1, ipsi, Ninv, pack)
 
         # exchange special accumulator rows (the ONLY extra collective:
         # [rps, N] per shard; padded duplicates drop out of the slice)
@@ -580,8 +409,7 @@ def _make_scatter_special(mesh, axis, parts, alloc, level, Pn,
 
     sharded = shard_map(
         shard_fn, mesh=mesh,
-        in_specs=(P(axis), P(axis), P(axis), P(), P(axis), P(axis),
-                  P(axis)),
+        in_specs=(P(axis), P(axis), P(axis), P(), P(axis), P(axis)),
         out_specs=(P(axis), P(axis)),
     )
 
@@ -608,14 +436,14 @@ def _make_scatter_special(mesh, axis, parts, alloc, level, Pn,
         """a: [C_ord, N]; ksk: engine ksk .data tuple or the
         :func:`prepare_ksk` form.
         ``tables``: see the replicated-special ``switcher`` docstring."""
-        ot_, stp_, stsm_, pml_ = (tables if tables is not None
-                                  else (ot, stp, stsm, pml0))
+        ot_, stp_, stsm_ = (tables if tables is not None
+                            else (ot, stp, stsm))
         if isinstance(ksk, RnsKsk):
             ksk_o, ksk_sp = ksk.o, ksk.s
         else:
             ksk_o, ksk_sp = _split_ksk(ksk)
-        return sharded(a, ot_, stp_, stsm_, ksk_o, ksk_sp, pml_)
+        return sharded(a, ot_, stp_, stsm_, ksk_o, ksk_sp)
 
-    switcher.tables = (ot, stp, stsm, pml0)
+    switcher.tables = (ot, stp, stsm)
     switcher.prepare_ksk = prepare_ksk
     return switcher

@@ -1,13 +1,13 @@
 """Vectorized ChaCha20 block function on uint32 state tensors.
 
-TPU-native equivalent of the reference CUDA kernel
+A JAX equivalent of the reference CUDA kernel
 (``csrc/cuda/chacha20_cuda.cu:6-40``): counter-mode ChaCha20 where each state
 row holds the 16 32-bit words of one block; 10 double-rounds then the
 feed-forward add; the block counter lives at word 12 (low) / 13 (carry) and is
 advanced by ``step`` after each generation.
 
 The reference stores 32-bit words in int64 lanes (GPU needs 64-bit lanes for
-the unmasked adds); on TPU we store genuine uint32 lanes — adds wrap mod 2^32
+the unmasked adds); here we store genuine uint32 lanes — adds wrap mod 2^32
 natively, which is exactly the ``& MASK`` semantics of the reference macros
 (``csrc/cuda/chacha20_cuda.h:9-40``).  Outputs are bit-identical.
 """

@@ -1,6 +1,6 @@
 """Counter-mode ChaCha20 CSPRNG with fused range-mapping samplers.
 
-TPU-native equivalent of the reference ``tiberate/rng/csprng/csprng.py`` plus
+A JAX equivalent of the reference ``tiberate/rng/csprng/csprng.py`` plus
 the fused CUDA kernels it drives (``randint_cuda.cu``,
 ``discrete_gaussian_cuda.cu``, ``randround_cuda.cu``).  The channel model is
 preserved exactly:

@@ -6,7 +6,7 @@ per-level per-op encoded cache, ``Ciphertext``/``CiphertextTriplet`` with
 full python operator dispatch through a process-wide default-engine
 registry, and the key classes.
 
-Differences (TPU-native):
+Differences:
 
 * ``data`` holds jnp arrays shaped ``[C, N]`` (RNS-channel-major, single
   logical array shardable over a mesh) instead of per-GPU tensor lists,

@@ -2,8 +2,8 @@
 
 Behavioral equivalent of the reference ``tiberate/utils/encoding.py``.  The
 codec is host-side, low-rate work where fp64 precision matters more than
-throughput, so it runs in numpy (complex128) — TPU f64 is emulated and
-``jnp.fft`` does not support complex128 there.  Device-side pieces (rotation /
+throughput, so it runs in numpy (complex128) on the host and no float
+matmul or FFT reaches the device.  Device-side pieces (rotation /
 conjugation coefficient permutations) return index/sign tables applied as
 jnp gathers by the engine.
 
@@ -159,8 +159,8 @@ def rotation_perm_tables(N: int, leap: int):
     ``out[j] = sign[j] * x[src_index[j]]``.
 
     The scatter form (reference ``encoding.py:275-293``) is
-    ``out[perm_folded[i]] = perm_sign[i] * x[i]``; we invert it into a gather
-    for TPU friendliness.
+    ``out[perm_folded[i]] = perm_sign[i] * x[i]``; we invert it into a
+    gather, which needs no scatter on the device.
     """
     perm = canon_permutation(N, leap)[:N]
     perm_folded = perm % N
@@ -235,9 +235,9 @@ def encode_batch(
 ):
     """Batched :func:`encode`: [B, N/2] message slots -> [B, N] signed
     integer coefficients, ONE vectorized FFT + ONE device stochastic-
-    rounding dispatch for the whole batch (VERDICT r2 #7: the reference
-    encodes on-device, ``encoding.py:202-216``; per-message host FFT +
-    rounding serializes the batched-inference hot loop).  Bit-identical
+    rounding dispatch for the whole batch (the reference encodes
+    on-device, ``encoding.py:202-216``; per-message host FFT + rounding
+    serializes the batched-inference hot loop).  Bit-identical
     to B sequential :func:`encode` calls (``Csprng.randround_batch``
     reproduces the sequential counter trajectory exactly)."""
     ms = np.asarray(ms)

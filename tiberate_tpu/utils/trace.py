@@ -1,6 +1,6 @@
 """Tracing / profiling helpers.
 
-TPU-native equivalent of the reference's compiler/profiling scaffolding
+The JAX equivalent of the reference's compiler/profiling scaffolding
 (``tiberate/jit/compiler.py`` — a torch.compile backend dumping FX graphs
 when DEBUG_MODE=1; nvtx was a dependency but unused).  Here:
 
